@@ -1,11 +1,11 @@
-"""mchap_tpu — a TPU-native micro-haplotype assembly and genotype-calling engine.
+"""mchap_tpu — micro-haplotype assembly and genotype calling on an accelerator.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of MCHap
 (PlantandFoodResearch/MCHap): micro-haplotype assembly and genotype calling
 in autopolyploids.  The reference's per-locus numba MCMC samplers become
 batched, jitted JAX programs in which many locus x sample x chain Markov
 chains run data-parallel on device; the read-pileup log-likelihood is a
-single MXU matmul computed once per sample rather than a per-proposal
+single matmul computed once per sample rather than a per-proposal
 triple loop.
 
 Public API mirrors the reference's ``mchap/__init__.py``:
@@ -23,19 +23,18 @@ import jax
 # affects the small summary computations.
 jax.config.update("jax_enable_x64", True)
 
-# Persistent compilation cache: the batched pipelines compile a handful
-# of large programs per shape bucket (remote-TPU compiles run minutes);
-# caching them on disk makes every process after the first start warm.
-try:
-    _cache_dir = _os.environ.get(
-        "MCHAP_JAX_CACHE", _os.path.expanduser("~/.cache/mchap_tpu_jax")
-    )
-    if _cache_dir:
-        _os.makedirs(_cache_dir, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", _cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-except Exception:  # cache is an optimisation, never a requirement
-    pass
+# Persistent compilation cache.  Where JAX_COMPILATION_CACHE_DIR is set
+# JAX reads it itself and nothing is set here; otherwise the cache lives
+# at one fixed path inside the checkout, so every process of the same
+# checkout finds what an earlier one compiled.
+CACHE_DIR = _os.path.join(
+    _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
+    ".build",
+    "jax_cache",
+)
+if not _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+    jax.config.update("jax_compilation_cache_dir", CACHE_DIR)
+jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 __version__ = "0.1.0"
 

@@ -235,7 +235,7 @@ mcmc_chain_incongruence_threshold = _p(
 )
 mcmc_llk_cache_threshold = _p(
     "--mcmc-llk-cache-threshold", type=int, nargs=1, default=[100],
-    help="Accepted for reference CLI compatibility; the TPU engine "
+    help="Accepted for reference CLI compatibility; this engine "
     "recomputes batched likelihoods and does not use a cache.",
 )
 read_group_field = _p(
@@ -252,7 +252,7 @@ cores = _p(
 locus_batch = _p(
     "--locus-batch", type=str, nargs=1, default=["auto"],
     help="Number of loci batched into one device sampler program "
-    '(default = "auto": a device-dependent batch on TPU, per-locus '
+    '(default = "auto": a device-dependent batch on a GPU, per-locus '
     "on CPU). Larger batches amortise dispatch and fill the "
     "accelerator; results are decision-identical to per-locus runs. "
     "The MCHAP_LOCUS_BATCH environment variable overrides this flag.",

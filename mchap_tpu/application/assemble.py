@@ -11,7 +11,7 @@ import numpy as np
 
 from mchap_tpu import mset
 from mchap_tpu.application import baseclass
-from mchap_tpu.utils import fallback, timing
+from mchap_tpu.utils import timing
 from mchap_tpu.application.arguments import (
     ASSEMBLE_MCMC_PARSER_ARGUMENTS,
     collect_assemble_mcmc_program_arguments,
@@ -267,8 +267,7 @@ class program(baseclass.program):
 
         Cross-locus streaming: every (locus, sample) assembly problem in
         the block is padded into a single batched sampler launch
-        (models/assemble.py ``fit_denovo_multi``), filling the pallas
-        kernel's 128-wide chain tiles across loci.  The reference
+        (models/assemble.py ``fit_denovo_multi``).  The reference
         parallelises the same axis with one forked process per locus
         (baseclass.py:360-394).  Returns formatted VCF lines in input
         order.
@@ -311,28 +310,21 @@ class program(baseclass.program):
         traces = {}
         with timing.stage("device_sampler"):
             for (ploidy, ladder), items in groups.items():
-                try:
-                    fitted = fit_denovo_multi(
-                        [p for _, _, p in items],
-                        ploidy,
-                        steps=self.mcmc_steps,
-                        chains=self.mcmc_chains,
-                        alpha=self.mcmc_alpha,
-                        beta=self.mcmc_beta,
-                        fix_homozygous=self.mcmc_fix_homozygous,
-                        recombination_step_probability=self.mcmc_recombination_step_probability,
-                        partial_dosage_step_probability=self.mcmc_partial_dosage_step_probability,
-                        dosage_step_probability=self.mcmc_dosage_step_probability,
-                        temperatures=ladder,
-                        random_seed=self.random_seed,
-                        burn=self.mcmc_burn,
-                    )
-                except Exception as e:  # noqa: BLE001 — reported, strict-gated
-                    # per-sample fallback in call_sample_genotypes
-                    fallback.note_fallback(
-                        "assemble-block", e, to="per-locus"
-                    )
-                    continue
+                fitted = fit_denovo_multi(
+                    [p for _, _, p in items],
+                    ploidy,
+                    steps=self.mcmc_steps,
+                    chains=self.mcmc_chains,
+                    alpha=self.mcmc_alpha,
+                    beta=self.mcmc_beta,
+                    fix_homozygous=self.mcmc_fix_homozygous,
+                    recombination_step_probability=self.mcmc_recombination_step_probability,
+                    partial_dosage_step_probability=self.mcmc_partial_dosage_step_probability,
+                    dosage_step_probability=self.mcmc_dosage_step_probability,
+                    temperatures=ladder,
+                    random_seed=self.random_seed,
+                    burn=self.mcmc_burn,
+                )
                 timing.count_sampler_steps(
                     len(items) * self.mcmc_chains * self.mcmc_steps
                 )

@@ -380,11 +380,15 @@ class program:
             for locus in self._timed_loci():
                 pending.append(locus)
                 if len(pending) >= block:
-                    for line in self._call_locus_block(pending):
+                    with timing.block():
+                        lines = self._call_locus_block(pending)
+                    for line in lines:
                         emit(line + "\n")
                     pending = []
             if pending:
-                for line in self._call_locus_block(pending):
+                with timing.block():
+                    lines = self._call_locus_block(pending)
+                for line in lines:
                     emit(line + "\n")
         timing.emit_summary()
 

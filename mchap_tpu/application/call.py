@@ -11,7 +11,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from mchap_tpu.application import call_baseclass
-from mchap_tpu.utils import fallback, timing
+from mchap_tpu.utils import timing
 from mchap_tpu.application.arguments import (
     CALL_MCMC_PARSER_ARGUMENTS,
     collect_call_mcmc_program_arguments,
@@ -269,19 +269,14 @@ class program(call_baseclass.program):
         traces = {}
         with timing.stage("device_sampler"):
             for ploidy, items in groups.items():
-                try:
-                    fitted = fit_calling_multi(
-                        [p for _, _, p in items],
-                        ploidy,
-                        steps=self.mcmc_steps,
-                        chains=self.mcmc_chains,
-                        random_seed=self.random_seed,
-                        burn=self.mcmc_burn,
-                    )
-                except Exception as e:  # noqa: BLE001 — reported, strict-gated
-                    # per-sample fallback below
-                    fallback.note_fallback("call-block", e, to="per-locus")
-                    continue
+                fitted = fit_calling_multi(
+                    [p for _, _, p in items],
+                    ploidy,
+                    steps=self.mcmc_steps,
+                    chains=self.mcmc_chains,
+                    random_seed=self.random_seed,
+                    burn=self.mcmc_burn,
+                )
                 timing.count_sampler_steps(
                     len(items) * self.mcmc_chains * self.mcmc_steps
                 )

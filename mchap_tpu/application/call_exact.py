@@ -30,7 +30,7 @@ from mchap_tpu.io.util import qual_of_prob
 from mchap_tpu.numerics.combinadics import index_as_genotype_alleles_np
 from mchap_tpu.numerics.logprob import natural_log_to_log10
 from mchap_tpu.ops import exact
-from mchap_tpu.utils import fallback, timing
+from mchap_tpu.utils import timing
 
 # panels above this size take the per-locus path inside a block: the
 # padded VCF genotype table would grow past C(32+3, 4) rows per problem
@@ -114,7 +114,7 @@ class program(call_baseclass.program):
                             llks, ploidy, len(haplotypes), prior=prior
                         )
                     )
-                    idx = int(np.argmax(probabilities))
+                    idx = int(exact.mode_index(probabilities))
                     alleles = index_as_genotype_alleles_np(idx, ploidy)
                     genotype_prob = probabilities[idx]
                     _, support_probs = exact.alternate_dosage_posteriors(
@@ -270,15 +270,9 @@ class program(call_baseclass.program):
         stats = {}
         with timing.stage("device_sampler"):
             for ploidy, items in groups.items():
-                try:
-                    results = exact.exact_posterior_stats_multi(
-                        [p for _, _, p in items], ploidy
-                    )
-                except Exception as e:  # noqa: BLE001 — reported, strict-gated
-                    fallback.note_fallback(
-                        "call-exact-block", e, to="per-locus"
-                    )
-                    continue
+                results = exact.exact_posterior_stats_multi(
+                    [p for _, _, p in items], ploidy
+                )
                 for (idx, sample, _), r in zip(items, results):
                     stats[(idx, sample)] = r
 
@@ -304,8 +298,8 @@ class program(call_baseclass.program):
                                 )
                                 raise SampleAssemblyError(message) from e
                     else:
-                        # per-locus fallback (oversize panel, dense
-                        # GL/GP fields, or a failed batched launch)
+                        # per-locus path (oversize panel or dense
+                        # GL/GP fields)
                         self.call_sample_genotypes(data)
                     self.sumarise_vcf_record(data)
                     results.append(data.format_vcf_record())

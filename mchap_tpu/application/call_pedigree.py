@@ -24,7 +24,7 @@ from mchap_tpu.application.baseclass import (
     LocusAssemblyError,
     SampleAssemblyError,
 )
-from mchap_tpu.utils import fallback, timing
+from mchap_tpu.utils import timing
 from mchap_tpu.application.call_exact import _fill_invalid_sampledata
 from mchap_tpu.encoding.integer import minimum_error_correction
 from mchap_tpu.io import vcf as VCF
@@ -311,34 +311,26 @@ class program(call_baseclass.program):
             if problems:
                 (sample_ploidy, parent_indices, gamete_tau, gamete_lambda,
                  gamete_error) = arrays
-                try:
-                    fitted = fit_pedigree_multi(
-                        problems,
-                        sample_ploidy=sample_ploidy,
-                        sample_parents=parent_indices,
-                        gamete_tau=gamete_tau,
-                        gamete_lambda=np.nan_to_num(gamete_lambda),
-                        gamete_error=np.nan_to_num(gamete_error, nan=1.0),
-                        steps=self.mcmc_steps,
-                        chains=self.mcmc_chains,
-                        random_seed=self.random_seed,
-                        burn=self.mcmc_burn,
-                    )
-                except Exception as e:  # noqa: BLE001 — reported, strict-gated
-                    # per-locus fallback below
-                    fallback.note_fallback(
-                        "pedigree-block", e, to="per-locus"
-                    )
-                    fitted = None
-                if fitted is not None:
-                    timing.count_sampler_steps(
-                        len(problems)
-                        * len(sample_ploidy)
-                        * self.mcmc_chains
-                        * self.mcmc_steps
-                    )
-                    for idx, t in zip(indices, fitted):
-                        traces[idx] = t.burn(self.mcmc_burn)
+                fitted = fit_pedigree_multi(
+                    problems,
+                    sample_ploidy=sample_ploidy,
+                    sample_parents=parent_indices,
+                    gamete_tau=gamete_tau,
+                    gamete_lambda=np.nan_to_num(gamete_lambda),
+                    gamete_error=np.nan_to_num(gamete_error, nan=1.0),
+                    steps=self.mcmc_steps,
+                    chains=self.mcmc_chains,
+                    random_seed=self.random_seed,
+                    burn=self.mcmc_burn,
+                )
+                timing.count_sampler_steps(
+                    len(problems)
+                    * len(sample_ploidy)
+                    * self.mcmc_chains
+                    * self.mcmc_steps
+                )
+                for idx, t in zip(indices, fitted):
+                    traces[idx] = t.burn(self.mcmc_burn)
 
         results = []
         with timing.stage("summarize_format"):

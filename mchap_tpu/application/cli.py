@@ -19,7 +19,7 @@ def main(command=None):
     usage = "usage: mchap [-h] {" + ",".join(tools) + "} ..."
     if len(command) < 2 or command[1] in {"-h", "--help"}:
         print(usage)
-        print("\nMicro-haplotype assembly and genotype calling (TPU-native build)")
+        print("\nMicro-haplotype assembly and genotype calling (JAX build)")
         return 0
     tool = command[1]
     if tool == "assemble":

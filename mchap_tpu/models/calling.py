@@ -2,9 +2,9 @@
 
 API parity with reference ``mchap/calling/classes.py`` (CallingMCMC,
 GenotypeAllelesMultiTrace, PosteriorGenotypeAllelesDistribution), with
-the sampler redesigned for TPU: all chains run as one batched device
-program (ops/calling_mcmc.py); posterior tabulation happens host-side on
-the small trace.
+the sampler redesigned for an accelerator: all chains run as one batched
+device program (ops/calling_mcmc.py); posterior tabulation happens
+host-side on the small trace.
 """
 
 from dataclasses import dataclass
@@ -15,103 +15,10 @@ import numpy as np
 
 from mchap_tpu import mset
 from mchap_tpu.numerics.combinadics import count_unique_genotypes
-from mchap_tpu.utils import fallback as _fallback
 from mchap_tpu.numerics.dosage import allelic_dosage  # noqa: F401 (re-export)
 from mchap_tpu.ops import calling_mcmc as _kernel
 from mchap_tpu.parallel.sharding import gather_result
 from mchap_tpu.ops.likelihood import prepare_reads, read_hap_loglik
-
-
-def _fit_batch_pallas(read_hap, counts, ploidy, steps, chains, seed, n_alleles,
-                      n_valid=None, burn=0, interpret=False, mesh="auto"):
-    """Run all samples x chains through the VMEM-resident pallas kernel.
-
-    Layout: one 128-wide lane per chain (samples' read-hap matrices
-    replicated across their chains; dummy zero-count lanes pad to a
-    multiple of 128).  Differences vs the XLA path — systematic slot
-    order and an all-reference initial state — are valid sampler choices
-    covered by the exact-posterior gates.
-
-    Multi-chip: with more than one visible device the kernel launch is
-    wrapped in ``shard_map`` over a 1-D "lanes" mesh (each device
-    samples its own block of lane tiles; per-device seeds are offset by
-    the device's global tile index).  ``mesh``: "auto" resolves via
-    ``parallel.sharding.lane_mesh``; ``None`` forces single-device.
-    """
-    from mchap_tpu.ops.pallas_calling import pallas_calling_sampler
-    from mchap_tpu.parallel.sharding import lane_mesh
-
-    if mesh == "auto":
-        mesh = lane_mesh()
-    n_shards = 1 if mesh is None else mesh.devices.size
-
-    n_samples = read_hap.shape[0]
-    b = n_samples * chains
-    granule = 128 * n_shards
-    b_pad = ((b + granule - 1) // granule) * granule
-    rh_cl = jnp.repeat(
-        jnp.transpose(read_hap, (1, 2, 0)), chains, axis=2
-    ).astype(jnp.float32)  # [R, H, S*chains]
-    counts_cl = jnp.repeat(jnp.transpose(counts, (1, 0)), chains, axis=1).astype(
-        jnp.float32
-    )  # [R, S*chains]
-    if b_pad != b:
-        rh_cl = jnp.pad(rh_cl, ((0, 0), (0, 0), (0, b_pad - b)))
-        counts_cl = jnp.pad(counts_cl, ((0, 0), (0, b_pad - b)))
-    if n_valid is not None:
-        nv_cl = np.repeat(np.asarray(n_valid, np.int32), chains)
-        nv_cl = np.pad(nv_cl, (0, b_pad - b), constant_values=1)
-        nv_arr = jnp.asarray(nv_cl)
-    else:
-        nv_arr = jnp.full((b_pad,), read_hap.shape[2], jnp.int32)
-
-    def _run(seed_arr, rh, c, nv):
-        return pallas_calling_sampler(
-            seed_arr, rh, c, n_steps=steps, ploidy=ploidy, n_valid=nv,
-            interpret=interpret,
-        )
-
-    if mesh is None:
-        genotypes, llks = _run(jnp.int32(seed), rh_cl, counts_cl, nv_arr)
-    else:
-        from jax.sharding import PartitionSpec as P
-
-        local_tiles = (b_pad // n_shards) // 128
-
-        def _body(rh, c, nv):
-            # per-device seed offset = global-first-tile * n_steps,
-            # matching the kernel's seed + tile * n_steps + step layout
-            d = jax.lax.axis_index("lanes").astype(jnp.int32)
-            seed_local = jnp.int32(seed) + d * jnp.int32(
-                local_tiles * steps
-            )
-            return _run(seed_local, rh, c, nv)
-
-        genotypes, llks = jax.shard_map(
-            _body,
-            mesh=mesh,
-            in_specs=(
-                P(None, None, "lanes"),
-                P(None, "lanes"),
-                P("lanes"),
-            ),
-            out_specs=(P(None, None, "lanes"), P(None, "lanes")),
-            check_vma=False,
-        )(rh_cl, counts_cl, nv_arr)
-    # slice burn-in and downcast ON DEVICE: only kept steps cross the link
-    small = jnp.int8 if n_alleles <= 127 else jnp.int16
-    genotypes = np.asarray(genotypes[burn:].astype(small))[:, :, :b]
-    llks = np.asarray(llks[burn:])[:, :b]
-    kept = steps - burn
-    genotypes = genotypes.reshape(kept, ploidy, n_samples, chains)
-    genotypes = genotypes.transpose(2, 3, 0, 1)
-    llks = llks.reshape(kept, n_samples, chains).transpose(1, 2, 0)
-    return [
-        GenotypeAllelesMultiTrace(
-            genotypes[i], llks[i].astype(float), n_alleles, burn
-        )
-        for i in range(n_samples)
-    ]
 
 
 def _prior_kind_and_params(prior, n_alleles):
@@ -281,31 +188,6 @@ def fit_calling_batch(
     step_type_i = {"Gibbs": 0, "Metropolis-Hastings": 1}[step_type]
     seed = random_seed if random_seed is not None else 0
 
-    # fast path: the VMEM-resident pallas kernel covers the default
-    # configuration (flat-prior Gibbs) on TPU; estimated VMEM must fit
-    n_reads_b = read_hap.shape[1]
-    h8 = ((n_alleles + 7) // 8) * 8
-    vmem_bytes = 4 * 128 * (
-        n_reads_b * h8 + n_reads_b * (ploidy + 1) + ploidy * h8 + 4 * h8
-    )
-    if (
-        prior_kind == 0
-        and step_type_i == 0
-        and jax.default_backend() not in ("cpu",)
-        and vmem_bytes < 6 * 1024 * 1024
-    ):
-        try:
-            traces = _fit_batch_pallas(
-                read_hap, counts, ploidy, steps, chains, seed, n_alleles,
-                burn=burn,
-            )
-            _fallback.note_path("calling", "pallas")
-            return traces
-        except Exception as e:  # noqa: BLE001 — reported, strict-gated
-            _fallback.note_fallback("calling", e, to="xla")
-    else:
-        _fallback.note_path("calling", "xla")
-
     keys = jax.random.split(jax.random.PRNGKey(seed), n_samples)
 
     def one(key, rh, c, f):
@@ -409,36 +291,7 @@ def fit_calling_multi(
     step_type_i = {"Gibbs": 0, "Metropolis-Hastings": 1}[step_type]
     seed = random_seed if random_seed is not None else 0
 
-    h8 = ((h_max + 7) // 8) * 8
-    vmem_bytes = 4 * 128 * (
-        bucket * h8 + bucket * (ploidy + 1) + ploidy * h8 + 4 * h8
-    )
     n_valid = np.array([len(p["haplotypes"]) for p in problems], np.int32)
-    if (
-        not use_prior
-        and step_type_i == 0
-        and jax.default_backend() != "cpu"
-        and vmem_bytes < 6 * 1024 * 1024
-    ):
-        try:
-            traces = _fit_batch_pallas(
-                read_hap, counts, ploidy, steps, chains, seed, h_max,
-                n_valid=n_valid, burn=burn,
-            )
-            # rewrap with each problem's own panel size (padding columns
-            # are -inf so never sampled)
-            _fallback.note_path("calling-multi", "pallas")
-            return [
-                GenotypeAllelesMultiTrace(
-                    t.genotypes, t.llks, len(problems[i]["haplotypes"]),
-                    t.pre_burned,
-                )
-                for i, t in enumerate(traces)
-            ]
-        except Exception as e:  # noqa: BLE001 — reported, strict-gated
-            _fallback.note_fallback("calling-multi", e, to="xla")
-    else:
-        _fallback.note_path("calling-multi", "xla")
 
     prior_kind = 1 if use_prior else 0
     inbreeding = np.asarray(inbreeding_rows if use_prior else np.zeros(n_problems))

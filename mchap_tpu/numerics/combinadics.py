@@ -3,7 +3,7 @@
 Device-friendly re-design of the reference's genotype-index machinery
 (``mchap/jitutils.py:113-318``) and counting helpers
 (``mchap/combinatorics.py``).  The reference iterates genotypes one at a
-time with ``increment_genotype``; on TPU we instead enumerate the full
+time with ``increment_genotype``; here we instead enumerate the full
 genotype table once host-side (``enumerate_genotypes``) and evaluate all
 genotypes as one batch, while the index<->alleles conversions are exact
 integer-arithmetic JAX functions usable inside jit (trace encoding).
@@ -107,7 +107,7 @@ def enumerate_genotypes(n_alleles: int, ploidy: int) -> np.ndarray:
     """All C(n_alleles + ploidy - 1, ploidy) genotypes in VCF order.
 
     Replaces the reference's one-at-a-time ``increment_genotype`` streaming
-    enumeration (jitutils.py:113-146): on TPU the whole table is a batch
+    enumeration (jitutils.py:113-146): here the whole table is a batch
     axis.  Rows are ascending allele tuples; row g has combinadic index g.
     """
     return _genotype_table_cached(n_alleles, ploidy)

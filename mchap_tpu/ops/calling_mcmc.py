@@ -1,11 +1,11 @@
 """Batched Gibbs / Metropolis-Hastings sampler over allele-index genotypes.
 
-TPU-first re-design of ``mchap/calling/mcmc.py``: the reference runs one
+Accelerator-first re-design of ``mchap/calling/mcmc.py``: the reference runs one
 chain at a time, scoring each of the n_alleles options for one slot with
 a fresh triple-loop likelihood call (mitigated by a dict cache).  Here:
 
 - the read x haplotype log-likelihood matrix is computed ONCE per sample
-  (ops/likelihood.read_hap_loglik — an MXU matmul), so scoring ALL
+  (ops/likelihood.read_hap_loglik — one matmul), so scoring ALL
   options of a Gibbs slot is a rank-1 logaddexp update + one matvec
   against read counts (`_option_llks`);
 - chains are a batch axis (vmap), steps and slots are lax.scan loops;
@@ -27,6 +27,10 @@ from mchap_tpu.ops.priors import (
     log_genotype_prior,
 )
 
+# every f32 contraction on the likelihood path runs at full precision:
+# an f32 GPU dot may otherwise run in TF32 (about three decimal digits)
+_HIGHEST = jax.lax.Precision.HIGHEST
+
 _NEG = -1e300  # effectively -inf in f64 logits without nan-propagation risk
 
 
@@ -37,7 +41,7 @@ def _option_llks(read_hap, read_counts, genotype, slot, log_ploidy):
     Returns f[H]: llk of the genotype with ``slot`` replaced by each allele.
 
     Per read: logaddexp of the (p-1) kept slots' lse with each option's
-    read-hap log-prob; weighted sum over reads is a matvec (MXU).
+    read-hap log-prob; weighted sum over reads is a matvec.
     """
     ploidy = genotype.shape[0]
     sub = read_hap[:, genotype]  # [R, p]
@@ -46,7 +50,7 @@ def _option_llks(read_hap, read_counts, genotype, slot, log_ploidy):
     rest = jax.scipy.special.logsumexp(masked, axis=-1)  # [R]
     combined = jnp.logaddexp(rest[:, None], read_hap)  # [R, H]
     read_log = combined - log_ploidy
-    return read_counts @ read_log  # [H]
+    return jnp.matmul(read_counts, read_log, precision=_HIGHEST)  # [H]
 
 
 def _option_genotypes(genotype, slot, n_alleles):
@@ -237,7 +241,7 @@ def greedy_caller(
         read_log = jax.scipy.special.logsumexp(sub, axis=-1) - jnp.log(
             jnp.asarray(k, read_hap.dtype)
         )
-        llks = read_counts @ read_log  # [H]
+        llks = jnp.matmul(read_counts, read_log, precision=_HIGHEST)  # [H]
         if prior_kind == 0:
             lpriors = jnp.zeros(n_alleles)
         else:

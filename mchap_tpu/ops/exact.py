@@ -1,11 +1,11 @@
 """Exact genotype enumeration caller (the ``call-exact`` compute core).
 
-TPU-first re-design of ``mchap/calling/exact.py``: the reference streams
+Accelerator-first re-design of ``mchap/calling/exact.py``: the reference streams
 genotypes one at a time through ``increment_genotype`` with a scalar
 accumulator (exact.py:17-61); here the full VCF-ordered genotype table is
 a batch axis and the whole posterior is computed with two matmuls:
 
-1. ``read_hap_loglik``: log P(read | haplotype) for the panel — one MXU
+1. ``read_hap_loglik``: log P(read | haplotype) for the panel — one
    matmul over the log-read tensor (see ops/likelihood.py).
 2. genotype likelihoods for ALL genotypes at once:
    P(read | genotype) = (1/ploidy) * sum_k dosage[g, k] * P(read | hap k),
@@ -24,6 +24,10 @@ import numpy as np
 from mchap_tpu.numerics.combinadics import count_unique_genotypes, enumerate_genotypes
 from mchap_tpu.ops.likelihood import prepare_reads, read_hap_loglik
 from mchap_tpu.ops.priors import log_genotype_prior
+
+# every f32 contraction on the likelihood path runs at full precision:
+# an f32 GPU dot may otherwise run in TF32 (about three decimal digits)
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def genotype_dosage_table(n_alleles: int, ploidy: int) -> np.ndarray:
@@ -50,7 +54,8 @@ def genotype_likelihoods_from_read_hap(read_hap, ploidy, read_counts=None):
     m = jnp.maximum(m, -1e300 if read_hap.dtype == jnp.float64 else -1e30)
     e = jnp.exp(read_hap - m[..., None])  # [.., R, K]
     probs = jnp.einsum(
-        "...rk,gk->...rg", e, dosage, preferred_element_type=read_hap.dtype
+        "...rk,gk->...rg", e, dosage, preferred_element_type=read_hap.dtype,
+        precision=_HIGHEST,
     )
     read_log = jnp.log(probs) + m[..., None] - jnp.log(jnp.asarray(ploidy, read_hap.dtype))
     if read_counts is not None:
@@ -88,9 +93,27 @@ def posterior_allele_frequencies(posteriors, ploidy, n_alleles):
     """
     p = jnp.asarray(posteriors)
     dosage = jnp.asarray(genotype_dosage_table(n_alleles, ploidy), p.dtype)  # [G, K]
-    counts = jnp.einsum("...g,gk->...k", p, dosage)
-    occur = jnp.einsum("...g,gk->...k", p, (dosage > 0).astype(p.dtype))
+    counts = jnp.einsum("...g,gk->...k", p, dosage, precision=_HIGHEST)
+    occur = jnp.einsum(
+        "...g,gk->...k", p, (dosage > 0).astype(p.dtype), precision=_HIGHEST
+    )
     return counts / ploidy, counts, occur
+
+
+# Genotypes whose posteriors agree to this relative tolerance count as
+# tied and the lowest VCF index wins.  Symmetric genotypes (two panel
+# haplotypes no read tells apart) tie exactly in exact arithmetic, and
+# which of them a bare argmax picks then depends on summation order:
+# per-locus vs cross-locus padding, CPU vs GPU.  Rounding noise in the
+# posteriors is ~1e-11 relative; real differences are far larger.
+MODE_TIE_RTOL = 1e-9
+
+
+def mode_index(posteriors):
+    """Index of the posterior mode, ties resolved to the lowest index."""
+    p = jnp.asarray(posteriors)
+    best = jnp.max(p, axis=-1, keepdims=True)
+    return jnp.argmax(p >= best * (1.0 - MODE_TIE_RTOL), axis=-1)
 
 
 def mode_genotype(posteriors, ploidy, n_alleles):
@@ -108,7 +131,7 @@ def mode_genotype(posteriors, ploidy, n_alleles):
     occupancy = jnp.asarray(
         genotype_dosage_table(n_alleles, ploidy) > 0
     )  # [G, K]
-    idx = jnp.argmax(p, axis=-1)
+    idx = mode_index(p)
     alleles = table[idx]
     mode_prob = jnp.take_along_axis(p, idx[..., None], axis=-1)[..., 0]
     mode_occ = occupancy[idx]  # [..., K]

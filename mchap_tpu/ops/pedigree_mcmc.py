@@ -1,6 +1,6 @@
 """Batched pedigree-informed MCMC (trio transition model + joint Gibbs).
 
-TPU-first re-design of ``mchap/pedigree/`` (prior.py, mcmc.py): the
+Accelerator-first re-design of ``mchap/pedigree/`` (prior.py, mcmc.py): the
 reference's irregular gamete-dosage iterator (``increment_dosage``,
 prior.py:230-294) becomes a fixed-size masked enumeration over static
 composition tables (all dosage vectors of a given gamete ploidy), so
@@ -33,6 +33,10 @@ _NEG = -1e300
 
 # binomial lookup (n, k up to 16) — exact in float64 for these sizes
 import math as _math
+
+# every f32 contraction on the likelihood path runs at full precision:
+# an f32 GPU dot may otherwise run in TF32 (about three decimal digits)
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 _COMB_LUT = np.zeros((17, 17))
 for _n in range(17):
@@ -294,12 +298,10 @@ def make_pedigree_kernels(
     sample — the reference's sequential sweep order.
 
     ``dtype`` sets the working precision of the trio/llk math.  f64 is
-    the reference-parity default (tests, CPU); the TPU fit paths pass
-    f32 — f64 is software-emulated on TPU, which both multiplies the
-    arithmetic cost ~8x and inflates the lowered program enough to push
-    remote compiles past 25 minutes.  The f32 posterior is gated
-    against the f64 path (tests/test_pedigree_mcmc.py) and against
-    exact enumeration.
+    the reference-parity default (tests, CPU); the accelerator fit paths
+    pass f32 (``models/pedigree._pedigree_dtype``).  The f32 posterior
+    is gated against the f64 path (tests/test_pedigree_mcmc.py) and
+    against exact enumeration.
     """
     tables_np, valid_np = composition_tables(max_ploidy)
     tables = jnp.asarray(tables_np)
@@ -356,8 +358,8 @@ def make_pedigree_kernels(
         One VMAPPED batch of trio evaluations, not an unrolled loop:
         blankets reach 20+ members on real pedigrees (a bi-parental
         founder's children) and unrolling a full trio_log_pmf per
-        member made the traced program enormous (multi-minute remote
-        compiles; the round-3 bench hang).  vmap keeps one traced
+        member made the traced program enormous (multi-minute
+        compiles).  vmap keeps one traced
         instance AND evaluates the members in parallel on device."""
         if members.shape[0] == 0:
             return jnp.zeros((), dtype)
@@ -373,8 +375,8 @@ def make_pedigree_kernels(
         list of sample ``s``; width 0 reduces to the self trio alone.
         Self and children evaluate as ONE vmapped member batch — one
         traced trio instance per call site, which halves the lowered
-        program vs separate self/children instances (remote compile
-        time is the pedigree path's binding constraint)."""
+        program vs separate self/children instances (compile time is
+        the pedigree path's binding constraint)."""
         members = jnp.concatenate([s[None], children_row])
         return _masked_trio_sum(members, genotypes, ped)
 
@@ -390,7 +392,7 @@ def make_pedigree_kernels(
         read_log = jax.scipy.special.logsumexp(
             jnp.where(mask, sub, NEG), axis=-1
         ) - jnp.log(ploidy.astype(dtype))
-        return counts @ read_log
+        return jnp.matmul(counts, read_log, precision=_HIGHEST)
 
     def _slot_options(s, k, children_row, genotypes, rh_all, counts_all, ped):
         """Per-candidate state for updating slot k of sample s: llk of
@@ -410,7 +412,9 @@ def make_pedigree_kernels(
             jnp.where(keep[None, :], sub, NEG), axis=-1
         )
         cand = jnp.logaddexp(rest[:, None], rh)  # [R, H]
-        llks = counts @ (cand - jnp.log(ploidy.astype(dtype)))  # [H]
+        llks = jnp.matmul(
+            counts, cand - jnp.log(ploidy.astype(dtype)), precision=_HIGHEST
+        )  # [H]
         options = jnp.broadcast_to(g, (n_alleles, maxp)).at[:, k].set(
             jnp.arange(n_alleles, dtype=g.dtype)
         )
@@ -514,7 +518,7 @@ def make_pedigree_kernels(
         proposed = genotypes.at[p, idx_p].set(allele_q).at[q, idx_q].set(allele_p)
         # batch the current/proposed states through ONE traced instance
         # of the llk and blanket evaluations (program-size discipline:
-        # remote compile time is the pedigree path's binding constraint)
+        # compile time is the pedigree path's binding constraint)
         states = jnp.stack([genotypes, proposed])  # [2, S, maxp]
         llks2 = jax.vmap(
             lambda st: sample_llk(rh_all[p], counts_all[p], st[p], ploidy_p)

@@ -1,1 +1,1 @@
-from mchap_tpu.parallel import mesh  # noqa: F401
+"""Sharding of the problem batch over devices and multi-host start-up."""

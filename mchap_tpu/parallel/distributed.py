@@ -3,10 +3,10 @@
 The reference's only cluster mechanism is shell-level data parallelism:
 split the BED, run one job per shard, ``cat``-merge the VCFs
 (/root/reference/docs/assemble.rst:344-377).  That pattern still works
-here unchanged (``--region`` / per-shard BED files).  The TPU build
+here unchanged (``--region`` / per-shard BED files).  This build
 additionally supports TRUE multi-controller SPMD: every host runs the
 SAME ``mchap`` command, ``jax.distributed.initialize`` connects the
-processes, the device mesh spans every host's chips, and the
+processes, the device mesh spans every host's devices, and the
 (locus, sample) problem batch shards globally — each process contributes
 its addressable shards (``parallel.sharding.shard_problems``) and reads
 back full results via a cross-host all-gather
@@ -15,8 +15,8 @@ back full results via a cross-host all-gather
 Activation is env-gated so single-host behavior is untouched:
 
 - ``MCHAP_DISTRIBUTED=1`` (or ``auto``) — ``jax.distributed.initialize()``
-  with no arguments; on Cloud TPU pods the coordinator, process count
-  and process id are discovered from the TPU metadata.
+  with no arguments, for clusters whose scheduler JAX can query for the
+  coordinator, process count and process id.
 - ``MCHAP_DISTRIBUTED=<host>:<port>,<num_processes>,<process_id>`` —
   explicit wiring for clusters without metadata discovery (each process
   passes its own ``process_id``).

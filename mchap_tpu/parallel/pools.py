@@ -77,12 +77,7 @@ def pooled_info_collectives(mesh, n_loci):
         snvdp_total = jax.lax.psum(snvdp_local, axis)
         return acp_total, aopsum_total, aop_total, snvdp_total
 
-    try:
-        from jax import shard_map
-    except ImportError:  # older jax
-        from jax.experimental.shard_map import shard_map
-
-    fn = shard_map(
+    fn = jax.shard_map(
         per_shard,
         mesh=mesh,
         in_specs=(P(axis), P(axis), P(axis), P(axis)),

@@ -13,7 +13,8 @@ communication (each problem's chains are independent; the only
 collectives are the population INFO pools, see ``parallel.pools``).
 
 Sharding activates automatically whenever more than one device is
-visible (a TPU slice, or the 8-virtual-device CPU mesh used in tests);
+visible (several GPUs on one host, or the 8-virtual-device CPU mesh
+used in tests);
 ``MCHAP_SHARD=0`` disables it for A/B comparisons — outputs are
 element-wise identical either way because every per-problem program and
 its PRNG keys are unchanged by placement.
@@ -24,24 +25,6 @@ import os
 import jax
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-
-
-def lane_mesh():
-    """1-D "lanes" mesh over all visible devices, or None.
-
-    Used by the pallas fast paths (models/assemble.py,
-    models/calling.py) to shard the chain-lane batch axis: the lane
-    tiles are embarrassingly parallel, so each device runs its own
-    kernel instance on its block of lanes via ``shard_map`` (per-device
-    seeds are offset by the device's global tile index so random
-    streams never collide).  ``MCHAP_SHARD=0`` disables it.
-    """
-    if os.environ.get("MCHAP_SHARD", "auto").strip() == "0":
-        return None
-    devices = jax.devices()
-    if len(devices) <= 1:
-        return None
-    return Mesh(np.array(devices), ("lanes",))
 
 
 def problem_mesh(min_problems=2):
@@ -101,11 +84,10 @@ def shard_problems(mesh, n_problems, *arrays):
 def gather_result(x):
     """Device output -> full host ndarray on every process.
 
-    Single-controller: a plain ``np.asarray`` (also forces completion
-    through remote-device tunnels).  Multi-controller: the output of a
-    sharded jit is only partially addressable per process, so all-gather
-    it across hosts first (one ICI/DCN collective; the per-locus results
-    are small relative to the sampling work).
+    Single-controller: a plain ``np.asarray``.  Multi-controller: the
+    output of a sharded jit is only partially addressable per process,
+    so all-gather it across hosts first (one collective; the per-locus
+    results are small relative to the sampling work).
     """
     if jax.process_count() <= 1:
         return np.asarray(x)

@@ -1,185 +1,112 @@
-"""End-to-end loci/s benchmark: the 22-sample bi-parental example.
+"""End-to-end loci/s of ``mchap assemble`` and ``mchap call-pedigree``.
 
-Runs the full ``mchap assemble`` pipeline (indexed BAM IO -> encoding ->
-batched de novo sampler -> VCF formatting) over the reference's bundled
-realistic config (`/root/reference/docs/example/input`: 22 tetraploid
-BAMs, 20 loci, 866 SNVs) and reports wall-clock loci/s.
+Inputs come from ``mchap_tpu.testing.write_deployment`` (a seeded
+bi-parental tetraploid population: 2 parents + 20 progeny, 119 bp
+loci, 8-32 SNVs per locus, 40-100 reads per sample and locus), written
+once into ``.build/bench_e2e`` inside the checkout.  Each run covers the
+whole CLI pipeline: SAM IO, read encoding, the batched sampler and VCF
+formatting.
 
-The example's FASTA is not shipped (only its .fai/.gzi); the reference
-sequence over the target regions is reconstructed exactly from the
-reads' MD tags (lowercase ref bases at mismatches) cross-checked with
-the SNV VCF's REF alleles, and written as an N-padded chr1 FASTA.
-
-Usage:
-    python scripts/bench_e2e.py            # time on the current backend
-    JAX_PLATFORMS=cpu ... bench_e2e.py     # host-CPU comparison row
+    python scripts/bench_e2e.py [--loci N]
 
 Prints one JSON line: {"metric": "e2e_loci_per_s", ...}.
 """
 
-import glob
+import argparse
+import contextlib
 import io
 import json
 import os
 import pathlib
 import sys
 import time
+import warnings
 
-sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
 
-import numpy as np
-
-INPUT = pathlib.Path("/root/reference/docs/example/input")
-CONTIG = "chr1"
-CONTIG_LEN = 21_898_217
-LINE = 70
-
-
-def reconstruct_fasta(out_path, bed_path, bams, vcf_gz):
-    """Rebuild the target regions' reference sequence from MD tags."""
-    from mchap_tpu.io.bamlite import AlignmentFile
-    from mchap_tpu.io.bed import read_bed4
-    from mchap_tpu.io.vcflite import VariantFile
-
-    loci = list(read_bed4(bed_path))
-    lo = min(l.start for l in loci) - 200
-    hi = max(l.stop for l in loci) + 200
-    seq = np.full(hi - lo, ord("N"), np.uint8)
-    for path in bams:
-        af = AlignmentFile(path)
-        for locus in loci:
-            for read in af.fetch(locus.contig, locus.start, locus.stop):
-                for pair in read.get_aligned_pairs(
-                    matches_only=True, with_seq=True
-                ):
-                    read_i, ref_i, char = pair
-                    if char is not None and lo <= ref_i < hi:
-                        seq[ref_i - lo] = ord(char.upper())
-    # authoritative REF alleles from the SNV VCF
-    with VariantFile(vcf_gz) as vf:
-        for rec in vf.fetch(CONTIG, lo, hi):
-            for k, ch in enumerate(rec.ref):
-                if lo <= rec.start + k < hi:
-                    seq[rec.start + k - lo] = ord(ch.upper())
-
-    with open(out_path, "w") as f:
-        f.write(f">{CONTIG}\n")
-        full = np.full(CONTIG_LEN, ord("N"), np.uint8)
-        full[lo:hi] = seq
-        text = full.tobytes().decode()
-        for i in range(0, CONTIG_LEN, LINE):
-            f.write(text[i : i + LINE])
-            f.write("\n")
-    # matching .fai: name, length, offset of first base, basesperline,
-    # bytes per line
-    offset = len(f">{CONTIG}\n")
-    with open(str(out_path) + ".fai", "w") as f:
-        f.write(f"{CONTIG}\t{CONTIG_LEN}\t{offset}\t{LINE}\t{LINE + 1}\n")
+WORK = ROOT / ".build" / "bench_e2e"
+HAPLOTYPES = str(WORK / "assemble.vcf")
+N_LOCI = 64
 
 
-def ensure_fasta(fasta="/tmp/mchap_bench_chr1.fa"):
-    """Reconstruct (once) and return the example's reference FASTA."""
-    bams = sorted(glob.glob(str(INPUT / "bam" / "*.bam")))
-    bed = str(INPUT / "bed" / "targets20.bed")
-    vcf = str(INPUT / "vcf" / "snvs.vcf.gz")
-    if not os.path.exists(fasta):
-        t0 = time.time()
-        reconstruct_fasta(fasta, bed, bams, vcf)
-        print(f"# reconstructed FASTA in {time.time() - t0:.1f}s",
-              file=sys.stderr)
-    return bams, bed, vcf, fasta
+_DEPLOYMENTS = {}
 
 
-def run_assemble(steps=1000, burn=500, out_vcf=None):
-    """Full ``mchap assemble`` over the realistic 22-sample example;
-    returns (wall_seconds, n_loci).  Writes the output VCF to
-    ``out_vcf`` when given (feeds the call-pedigree e2e workload)."""
-    import contextlib
+def deployment(n_loci=N_LOCI, seed=0):
+    """Write (once per process) and return the generated inputs."""
+    from mchap_tpu.testing import write_deployment
 
-    bams, bed, vcf, fasta = ensure_fasta()
-    from mchap_tpu.application.assemble import program
-
-    command = (
-        ["mchap", "assemble", "--bam"]
-        + bams
-        + [
-            "--ploidy", "4",
-            "--targets", bed,
-            "--variants", vcf,
-            "--reference", fasta,
-            "--mcmc-steps", str(steps),
-            "--mcmc-burn", str(burn),
-            "--mcmc-seed", "11",
-        ]
-    )
-    prog = program.cli(command)
-    t0 = time.time()
-    buffer = io.StringIO()
-    with contextlib.redirect_stdout(buffer):
-        prog.run_stdout()
-    dt = time.time() - t0
-    lines = buffer.getvalue().splitlines()
-    n_records = sum(1 for ln in lines if not ln.startswith("#"))
-    n_loci = 20
-    assert n_records == n_loci, f"expected {n_loci} records, got {n_records}"
-    if out_vcf:
-        with open(out_vcf, "w") as f:
-            f.write(buffer.getvalue())
-    return dt, n_loci
+    key = (n_loci, seed)
+    if key not in _DEPLOYMENTS:
+        out = WORK / f"inputs_{n_loci}_{seed}"
+        _DEPLOYMENTS[key] = write_deployment(out, seed=seed, n_loci=n_loci)
+    return _DEPLOYMENTS[key]
 
 
-def run_call_pedigree(haplotypes_vcf, steps=1000, burn=500):
-    """Full ``mchap call-pedigree`` over the example's bi-parental
-    pedigree (22 samples) against a known-haplotypes VCF; returns
-    (wall_seconds, n_loci)."""
-    import contextlib
-    import warnings
-
-    bams, bed, vcf, fasta = ensure_fasta()
-    from mchap_tpu.application.call_pedigree import program
-
-    command = (
-        ["mchap", "call-pedigree", "--bam"]
-        + bams
-        + [
-            "--ploidy", "4",
-            "--haplotypes", haplotypes_vcf,
-            "--sample-parents", str(INPUT / "pedigree" / "pedigree.txt"),
-            "--mcmc-steps", str(steps),
-            "--mcmc-burn", str(burn),
-            "--mcmc-seed", "11",
-        ]
-    )
+def _run(program, command):
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         prog = program.cli(command)
-    t0 = time.time()
     buffer = io.StringIO()
+    t0 = time.perf_counter()
     with contextlib.redirect_stdout(buffer):
         prog.run_stdout()
-    dt = time.time() - t0
-    lines = buffer.getvalue().splitlines()
-    n_records = sum(1 for ln in lines if not ln.startswith("#"))
-    assert n_records == 20, f"expected 20 records, got {n_records}"
+    dt = time.perf_counter() - t0
+    text = buffer.getvalue()
+    n_records = sum(1 for ln in text.splitlines() if not ln.startswith("#"))
+    return dt, n_records, text
+
+
+def run_assemble(steps=1000, burn=500, out_vcf=None, n_loci=N_LOCI):
+    """Full ``mchap assemble``; returns (wall_seconds, n_loci) and writes
+    the VCF to ``out_vcf`` when given (the call-pedigree workload's
+    haplotypes)."""
+    from mchap_tpu.application.assemble import program
+
+    dep = deployment(n_loci)
+    command = ["mchap", "assemble", "--bam", *dep["sams"], "--ploidy", "4",
+               "--targets", dep["bed"], "--variants", dep["vcf"],
+               "--reference", dep["reference"], "--mcmc-steps", str(steps),
+               "--mcmc-burn", str(burn), "--mcmc-seed", "11"]
+    dt, n_records, text = _run(program, command)
+    assert n_records == n_loci, f"expected {n_loci} records, got {n_records}"
+    if out_vcf:
+        os.makedirs(os.path.dirname(out_vcf), exist_ok=True)
+        with open(out_vcf, "w") as f:
+            f.write(text)
+    return dt, n_records
+
+
+def run_call_pedigree(haplotypes_vcf, steps=1000, burn=500, n_loci=N_LOCI):
+    """Full ``mchap call-pedigree`` against a haplotypes VCF; returns
+    (wall_seconds, n_loci)."""
+    from mchap_tpu.application.call_pedigree import program
+
+    dep = deployment(n_loci)
+    command = ["mchap", "call-pedigree", "--bam", *dep["sams"], "--ploidy", "4",
+               "--haplotypes", haplotypes_vcf, "--sample-parents",
+               dep["pedigree"], "--mcmc-steps", str(steps), "--mcmc-burn",
+               str(burn), "--mcmc-seed", "11"]
+    dt, n_records, _ = _run(program, command)
+    assert n_records == n_loci, f"expected {n_loci} records, got {n_records}"
     return dt, n_records
 
 
 def main():
     import jax
 
-    dt, n_loci = run_assemble(1000, 500)
-    print(
-        json.dumps(
-            {
-                "metric": "e2e_loci_per_s",
-                "value": round(n_loci / dt, 4),
-                "unit": "loci/s (22 samples, 1000 steps, 2 chains)",
-                "seconds": round(dt, 1),
-                "backend": jax.default_backend(),
-            }
-        ),
-        flush=True,
-    )
+    parser = argparse.ArgumentParser(description="end-to-end loci/s")
+    parser.add_argument("--loci", type=int, default=N_LOCI)
+    args = parser.parse_args()
+    dt, n_loci = run_assemble(1000, 500, n_loci=args.loci)
+    devices = jax.devices()
+    print(json.dumps(dict(
+        metric="e2e_loci_per_s", value=n_loci / dt,
+        unit="loci/s (22 samples, 1000 steps, 2 chains)", seconds=dt,
+        platform=devices[0].platform, device_kind=devices[0].device_kind,
+        device_count=len(devices),
+    )), flush=True)
 
 
 if __name__ == "__main__":

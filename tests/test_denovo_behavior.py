@@ -5,8 +5,8 @@ Port of the reference's behavioral regime
 reads at high depth the posterior concentrates on the true genotype;
 at low depth it must NOT concentrate (the sampler honestly reports
 uncertainty).  These run the real ``DenovoMCMC.fit`` XLA path on the
-CPU backend; the TPU pallas path is gated separately against exact
-enumeration (scripts/gate_pallas_denovo.py).
+CPU backend; chip_smoke.py gates the same sampler against exact
+enumeration on the GPU.
 """
 
 import numpy as np

@@ -10,7 +10,6 @@ validated as psum collectives against the host formulas.
 
 import numpy as np
 import jax
-import pytest
 
 from mchap_tpu.models.assemble import fit_denovo_multi
 from mchap_tpu.models.calling import fit_calling_multi
@@ -174,93 +173,6 @@ def test_gather_result_multicontroller_branch(monkeypatch):
     monkeypatch.setattr(sharding_mod, "jax", _MultiControllerJax(jax))
     got = gather_result(placed)
     np.testing.assert_array_equal(got, expect)
-
-
-def test_pallas_denovo_shard_map_matches_single_device():
-    """The de novo pallas fast path composed with shard_map over the
-    lane mesh (the exact multi-chip program) equals the single-device
-    launch element-wise.  Interpret mode: the kernel interpreter is
-    deterministic, so placement cannot change results."""
-    import jax.numpy as jnp
-    from jax.sharding import Mesh
-
-    from mchap_tpu.models.assemble import _fit_denovo_batch_pallas
-    from mchap_tpu.ops.likelihood import prepare_reads
-
-    ploidy, nb, n_a = 4, 3, 2
-    rng = np.random.default_rng(0)
-    n_samples, chains, steps = 3, 2, 3
-    truths = rng.integers(0, n_a, size=(n_samples, ploidy, nb)).astype(np.int8)
-    reads = np.stack(
-        [
-            simulate_reads(t, n_alleles=n_a, n_reads=8, errors=False, seed=i)
-            for i, t in enumerate(truths)
-        ]
-    )
-    counts = np.ones((n_samples, reads.shape[1]))
-    log_reads = np.asarray(prepare_reads(reads, dtype=jnp.float32))
-    init = rng.integers(
-        0, n_a, size=(n_samples, chains, ploidy, nb)
-    ).astype(np.int32)
-    nall = np.full((n_samples, nb), n_a, np.int32)
-    break_dist = np.zeros((n_samples, nb))
-    break_dist[:, 0] = 1.0
-    kwargs = dict(
-        seed=7, p_recomb=0.5, p_partial=0.5, p_full=1.0, interpret=True
-    )
-    single = _fit_denovo_batch_pallas(
-        log_reads, counts, init, nall, break_dist, ploidy, steps, chains,
-        mesh=None, **kwargs
-    )
-    # 2-device mesh keeps the interpret-mode lane count (and runtime)
-    # small while still exercising sharded specs + per-device seeds
-    mesh = Mesh(np.array(jax.devices()[:2]), ("lanes",))
-    sharded = _fit_denovo_batch_pallas(
-        log_reads, counts, init, nall, break_dist, ploidy, steps, chains,
-        mesh=mesh, **kwargs
-    )
-    for a, b in zip(single, sharded):
-        np.testing.assert_array_equal(a.genotypes, b.genotypes)
-        np.testing.assert_allclose(a.llks, b.llks, rtol=1e-6)
-
-
-def test_pallas_calling_shard_map_matches_single_device():
-    """The calling pallas fast path composed with shard_map over the
-    lane mesh equals the single-device launch element-wise."""
-    import jax.numpy as jnp
-    from jax.sharding import Mesh
-
-    from mchap_tpu.models.calling import _fit_batch_pallas
-    from mchap_tpu.ops.likelihood import prepare_reads, read_hap_loglik
-
-    ploidy, nb, n_a = 4, 3, 2
-    panel = np.array([[0, 0, 0], [0, 1, 1], [1, 1, 0]], np.int8)
-    rng = np.random.default_rng(1)
-    n_samples, chains, steps = 3, 2, 3
-    reads = np.stack(
-        [
-            simulate_reads(
-                panel[rng.integers(0, len(panel), ploidy)],
-                n_alleles=n_a, n_reads=8, errors=False, seed=i,
-            )
-            for i in range(n_samples)
-        ]
-    )
-    counts = np.ones((n_samples, reads.shape[1]))
-    rh = read_hap_loglik(prepare_reads(reads), jnp.asarray(panel))
-    counts_j = jnp.asarray(counts, rh.dtype)
-    single = _fit_batch_pallas(
-        np.asarray(rh), counts_j, ploidy, steps, chains, 7, len(panel),
-        mesh=None, interpret=True,
-    )
-    mesh = Mesh(np.array(jax.devices()[:2]), ("lanes",))
-    sharded = _fit_batch_pallas(
-        np.asarray(rh), counts_j, ploidy, steps, chains, 7, len(panel),
-        mesh=mesh, interpret=True,
-    )
-    for a, b in zip(single, sharded):
-        np.testing.assert_array_equal(a.genotypes, b.genotypes)
-        np.testing.assert_allclose(a.llks, b.llks, rtol=1e-6)
 
 
 def test_pooled_info_collectives_match_host_formulas():
